@@ -30,7 +30,7 @@ bench:
 	$(PY) bench.py
 
 lint:
-	$(PY) -m compileall -q fennec_tpu tests bench.py __graft_entry__.py
+	$(PY) -m compileall -q fennec_tpu tests bench.py chip_smoke.py __graft_entry__.py
 
 clean:
 	rm -rf fennec_tpu/native/_fennec_native.so .pytest_cache

@@ -1,4 +1,4 @@
-"""Stage profile of the batched target-size engine (VERDICT r2 #6).
+"""Stage profile of the batched target-size engine.
 
 Times S1 / S3 separately and the full hit_target_size_batched, n=32 at
 500x500 -> 20 KB (Format.JPEG: S2 skipped), so the win from concurrent
@@ -15,7 +15,9 @@ import numpy as np
 def main() -> None:
     sys.path.insert(0, ".")
     import bench
-    bench._enable_compile_cache()
+    from fennec_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     import concurrent.futures
 

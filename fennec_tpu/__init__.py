@@ -1,13 +1,13 @@
-"""fennec-tpu — TPU-native perceptual image compression.
+"""fennec-tpu — perceptual image compression on an accelerator.
 
-A from-scratch JAX/XLA/Pallas framework with the capabilities of the
-reference Go library (shamspias/fennec): SSIM-guided JPEG quality search,
+A from-scratch JAX/XLA framework with the capabilities of the reference
+Go library (shamspias/fennec): SSIM-guided JPEG quality search,
 target-file-size optimization, perceptual color quantization, Lanczos-3
 resize, MS-SSIM, image analysis, EXIF orientation, effects, and a batch
-engine — redesigned for TPU: images are device arrays, every hot loop is a
-fused XLA/Pallas program, the JPEG quality bisection runs on device with
-DCT coefficients cached across probes, and batches shard over device
-meshes.
+engine — redesigned for an accelerator: images are device arrays, every
+hot loop is a fused XLA program, the JPEG quality bisection runs on
+device with DCT coefficients cached across probes, and batches shard
+over device meshes.
 
 Quick start::
 
@@ -21,8 +21,9 @@ Quick start::
 import os as _os
 
 if _os.environ.get("FENNEC_FORCE_CPU"):
-    # Deterministic CPU backend (e.g. CLI tests, machines where the TPU
-    # plugin grabs the default platform even under JAX_PLATFORMS=cpu).
+    # Deterministic CPU backend (CLI tests, examples) even when a GPU is
+    # present: set through the config as well as the environment, so a
+    # JAX initialised before this import still honours it.
     import jax as _jax
 
     _jax.config.update("jax_platforms", "cpu")

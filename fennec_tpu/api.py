@@ -76,7 +76,7 @@ def compress_bytes(ctx: Optional[Context], data: bytes,
 def compress_images(ctx: Optional[Context], images,
                     opts: Optional[Options] = None,
                     workers: int = 0) -> list:
-    """Compress many decoded images with shared options — the TPU-native
+    """Compress many decoded images with shared options — the device
     mega-batch API (no reference equivalent; CompressBatch works on
     files).  Same-shape images batch into single device programs; results
     keep input order.  workers sizes the host encode pool (0 = auto)."""

@@ -82,7 +82,7 @@ def main(argv: Optional[list] = None) -> int:
     enable_compile_cache()
     p = argparse.ArgumentParser(
         prog="fennec-tpu",
-        description="TPU-native SSIM-guided image compression")
+        description="SSIM-guided image compression on the GPU")
     p.add_argument("--quality", default="balanced", help="Quality preset")
     p.add_argument("--format", default="auto", help="Output format")
     p.add_argument("--max-width", type=int, default=0, help="Max width")
@@ -106,7 +106,8 @@ def main(argv: Optional[list] = None) -> int:
     p.add_argument("--device-entropy", choices=("auto", "on", "off"),
                    default="auto",
                    help="Assemble the JPEG bitstream on the accelerator "
-                        "(auto: on when running on TPU)")
+                        "(auto: the platform's default arm, on for a GPU "
+                        "and off for the CPU; see fennec_tpu.backend)")
     p.add_argument("-v", "--verbose", action="store_true",
                    help="Verbose output")
     p.add_argument("input", help="Input image path")

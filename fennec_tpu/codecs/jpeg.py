@@ -1,10 +1,10 @@
-"""Baseline JPEG codec with a device (TPU) transform path.
+"""Baseline JPEG codec with a device transform path.
 
-Architecture (TPU-first, replacing the reference's stdlib codec round-trips,
-compress.go:45-62 / io.go:157-169):
+Architecture (device-first, replacing the reference's stdlib codec
+round-trips, compress.go:45-62 / io.go:157-169):
 
   encode:  host uint8 → device [color convert → 4:2:0 subsample → block DCT
-           (one (N,64)×(64,64) MXU matmul) → quantize] → host Huffman
+           (one (N,64)×(64,64) matmul) → quantize] → host Huffman
            entropy coding (C++ native when built, Python fallback).
   decode:  host marker parse + Huffman decode → quantized coefficients →
            device [dequantize → IDCT → chroma upsample → YCbCr→RGB → clamp].

@@ -1,6 +1,6 @@
 """Target-file-size engine: four search strategies + candidate ranking.
 
-Reference semantics (targetsize.go:26-348) with a TPU-native cost model:
+Reference semantics (targetsize.go:26-348) with a device cost model:
 the per-image forward DCT is computed once and cached; every quality probe
 re-quantizes on device and pays only one host Huffman pass for the exact
 byte size (the reference re-runs its full encoder per probe).
@@ -94,7 +94,7 @@ def probe_geometry(src_w: int, src_h: int, new_w: int,
     exact search at the exact geometry.  Snapping the PROBE geometry bounds
     the set of XLA programs the scale search can request: without it every
     binary-search midpoint mints a fresh (new_w, new_h) static shape and a
-    fresh multi-minute TPU compile; with it a 500² source can only ever ask
+    fresh XLA compile; with it a 500² source can only ever ask
     for ~31 probe widths, all persistently cacheable."""
     def snap(v: int, cap: int) -> int:
         return min(cap, max(PROBE_LATTICE,

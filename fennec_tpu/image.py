@@ -1,6 +1,6 @@
 """Pixel substrate: NRGBA array conversion, geometry, and format analysis.
 
-The TPU-native analogue of the reference's pixel layer (convert.go).  Instead
+The device-side analogue of the reference's pixel layer (convert.go).  Instead
 of pixel structs, an image is a numpy array of shape (H, W, 4), dtype uint8,
 in non-premultiplied RGBA order.  Device compute (ops/*) lifts these to
 float32 JAX arrays; this module is the host-side boundary.

@@ -1,6 +1,6 @@
 // fennec-tpu native runtime: JPEG entropy codec + PNG scanline filters.
 //
-// The device (TPU/XLA) owns all array math; this library owns the
+// The device (JAX/XLA) owns all array math; this library owns the
 // sequential byte-twiddling the reference did in compiled Go: baseline
 // JPEG Huffman encode/decode (ITU T.81) and PNG filter/unfilter.
 // Exposed via a C ABI consumed through ctypes (fennec_tpu/native/build.py).
@@ -744,7 +744,7 @@ long fennec_jpeg_decode_progressive_scan(
 
 // Decode an interleaved baseline scan DIRECTLY into an int8 coefficient
 // block with a sparse exception list — the upload format of the batched
-// TPU path (engine/batched.py).  out: (sum of bw[c]*bh[c]) x 64 int8 in
+// device path (engine/batched.py).  out: (sum of bw[c]*bh[c]) x 64 int8 in
 // ZIGZAG order (position k of a block row = zigzag index k — photo
 // blocks end early in zigzag order, so the engine can truncate the
 // trailing all-zero columns before upload); components concatenated in

@@ -1,8 +1,8 @@
-"""Device-resident compute kernels (JAX/XLA/Pallas).
+"""Device-resident compute kernels (JAX/XLA).
 
-This is the TPU analogue of the reference's L1 compute layer
+This is the device analogue of the reference's L1 compute layer
 (ssim.go / resize.go / effects.go): every hot loop in the reference's Go
-code becomes a jitted array program or Pallas kernel here.
+code becomes a jitted array program here.
 """
 
 from .color import luminance_device, luminance_host  # noqa: F401

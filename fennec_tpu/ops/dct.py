@@ -1,9 +1,9 @@
 """8×8 block DCT / IDCT and JPEG quantization on device.
 
-TPU-first formulation: a block DCT C = D·B·Dᵀ over every 8×8 block is
+Device formulation: a block DCT C = D·B·Dᵀ over every 8×8 block is
 flattened with the Kronecker identity vec(D·B·Dᵀ) = (D⊗D)·vec(B), turning
-the whole-image DCT into ONE (num_blocks, 64) × (64, 64) matmul — ideal
-MXU shape (contraction 64, unbounded M).  IDCT is the transpose multiply.
+the whole-image DCT into ONE (num_blocks, 64) × (64, 64) matmul
+(contraction 64, unbounded M).  IDCT is the transpose multiply.
 
 This replaces the role of Go stdlib's scalar fixed-point FDCT/IDCT inside
 the reference's encode→decode→score loop (compress.go:45-62): here the
@@ -129,7 +129,7 @@ def from_blocks(blocks: jax.Array, h: int, w: int) -> jax.Array:
 
 def dct2d_blocks(blocks: jax.Array) -> jax.Array:
     """Forward DCT of (N, 64) pixel blocks (level-shifted) → (N, 64) coefs.
-    One MXU matmul via the Kronecker-flattened basis."""
+    One matmul via the Kronecker-flattened basis."""
     m = jnp.asarray(dct_kron())
     return jnp.dot(blocks, m.T, preferred_element_type=jnp.float32,
                    precision=jax.lax.Precision.HIGHEST)

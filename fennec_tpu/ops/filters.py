@@ -1,9 +1,9 @@
 """Host-side filter weight construction.
 
-TPU-first design: instead of per-output-pixel weight *lists* walked by
+Device-first design: instead of per-output-pixel weight *lists* walked by
 scalar loops (reference resize.go:164-197, ssim.go:244-284), fennec-tpu
 bakes resampling into dense (dst, src) weight matrices so that a resize or
-box-downsample is two matmuls on the MXU.  Weights are computed on the host
+box-downsample is two matmuls.  Weights are computed on the host
 in float64 (matching the reference's float64 math exactly), cached by
 (dst, src) shape, and shipped to device as float32.
 """

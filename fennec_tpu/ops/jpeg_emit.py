@@ -1,19 +1,18 @@
-"""Device-side JPEG entropy ENCODING: Huffman bit emission on TPU.
+"""Device-side JPEG entropy ENCODING: Huffman bit emission on device.
 
 Goes one step beyond the size oracle (ops/jpeg_size.py): the actual
 entropy-coded bitstream is assembled on device — every symbol's bit offset
 comes from prefix sums (no sequential bit writer), and the whole pipeline
-is scatter-free (XLA lowers scatter to a serialized loop on TPU, which
-made the first version of this file 3× slower than host encoding):
+is scatter-free:
 
   1. per-block LOCAL packing: each block's symbols (DC code+magnitude,
      merged ZRL pairs, AC code+magnitude, EOB — every field ≤ 32 bits) are
      deposited into a fixed (LWORDS,) big-endian u32 buffer per block with
-     one-hot masked reductions over the word axis — pure VPU work,
+     one-hot masked reductions over the word axis — elementwise work,
      vectorized over all blocks and all 64 zigzag positions at once;
   2. GLOBAL assembly: every block's buffer is funnel-shifted onto the
      global word grid, then output word w sums (a) the first words of all
-     blocks STARTING in w via one one-hot MXU matmul (bit ranges are
+     blocks STARTING in w via one one-hot matmul (bit ranges are
      disjoint, so per-byte sums stay ≤ 255 and accumulate exactly), and
      (b) the continuation word of the single earlier block spanning w,
      found by a prefix sum over the same matmul's starter counts (no
@@ -41,6 +40,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from ..backend import emit_onehot_cap
 from ..codecs import tables as std_tables
 from .dct import ZIGZAG
 from .jpeg_size import _bitlen, mcu_order
@@ -141,9 +141,7 @@ def emit_words_for_bits(nbits: int) -> int:
 def _lut(table_2xS: jnp.ndarray, idx: jax.Array):
     """Look idx up in a tiny (2, S) int table via one-hot matmuls.
 
-    TPU element-gathers run at a few thousand lookups/ms; one-hot dots on
-    the MXU do the same lookup at memory speed.  Exactness without f32
-    matmuls (6× the MXU passes of bf16): every looked-up value is split
+    Exactness without f32 matmuls: every looked-up value is split
     into ≤8-bit halves, each exactly representable in bf16, and the
     one-hot rows select exactly one entry, so bf16 accumulation is exact.
 
@@ -166,7 +164,7 @@ def _lut(table_2xS: jnp.ndarray, idx: jax.Array):
         size = (idx & 15).astype(jnp.int32)
         oh_r = (run[..., None] == i16).astype(jnp.bfloat16)
         oh_s = (size[..., None] == i16).astype(jnp.bfloat16)
-        # p[m, s, c] = T[run_m, s, c]: one 16-wide MXU dot per element.
+        # p[m, s, c] = T[run_m, s, c]: one 16-wide dot per element.
         p = jax.lax.dot_general(
             oh_r.reshape(-1, 16), t3, (((1,), (0,)), ((), ())),
             preferred_element_type=jnp.bfloat16)
@@ -273,12 +271,12 @@ def _component_fields(blocks: jax.Array, order: np.ndarray,
 
 
 def _ac_hist_matmul(sym: jax.Array, nz: jax.Array) -> jax.Array:
-    """AC run/size histogram as a 16×16 MXU outer product.
+    """AC run/size histogram as a 16×16 one-hot outer product.
 
     H[r, s] = Σ_m oh_run[m, r] · (oh_size[m, s] · nz_m).  The naive
     256-bin compare materializes an HBM-bound (M, 256) mask; decomposing
     sym = run*16 + size shrinks the operands to two (M, 16) one-hots and
-    puts the reduction on the MXU.  bf16 inputs are 0/1 (exact); f32
+    puts the reduction in a matmul.  bf16 inputs are 0/1 (exact); f32
     accumulation is exact below 2^24, so the m axis is segmented and
     segments add in int32.  Returns (256,) int32 in sym-bin order.
     """
@@ -358,10 +356,7 @@ def _deposit_local(buf: jax.Array, val, ln, off) -> jax.Array:
     field f of block n occupies local bits [off, off+ln) (ln == 0 →
     absent).  Fields are ≤ 32 bits so each touches at most two words;
     one-hot masks over the word axis turn the deposit into a masked
-    reduction over F — pure VPU work, no scatter (XLA serializes scatter
-    on TPU; an earlier scatter-based version of this file ran 3× slower
-    than host encoding, and a searchsorted/compaction variant 5× slower
-    still — see git history).
+    reduction over F — elementwise work, no scatter.
     """
     v = jnp.asarray(val).astype(jnp.uint32)
     ln = jnp.asarray(ln).astype(jnp.int32)
@@ -431,8 +426,8 @@ def _pack_blocks_local(fields, lwords: int = LWORDS) -> jax.Array:
 def _rows_sorted(table: jax.Array, idx: jax.Array) -> jax.Array:
     """Gather whole rows of table (T, C) at sorted indices idx (W,).
 
-    Row gathers amortize TPU's high per-index gather cost over C
-    contiguous elements, and the sorted hint lets XLA skip re-ordering.
+    Row gathers amortize the per-index gather cost over C contiguous
+    elements, and the sorted hint lets XLA skip re-ordering.
     """
     dnums = jax.lax.GatherDimensionNumbers(
         offset_dims=(1,), collapsed_slice_dims=(0,), start_index_map=(0,))
@@ -463,7 +458,7 @@ def _grid_align(bufs: jax.Array, block_bits: jax.Array):
 
 def _assemble_global_matmul(bufs: jax.Array, block_bits: jax.Array,
                             max_words: int):
-    """Assemble the output stream with one MXU matmul — no searchsorted,
+    """Assemble the output stream with one matmul — no searchsorted,
     no gather window, no per-candidate loop.
 
     Output word w receives (a) the first grid-aligned word of every block
@@ -513,15 +508,11 @@ def _assemble_global_matmul(bufs: jax.Array, block_bits: jax.Array,
     return starters + cont, total_bits
 
 
-# Above this many one-hot elements (T blocks × max_words), the matmul
-# assembly's (T, mw) operand outgrows HBM economy and the windowed-gather
-# path wins; 1<<27 bf16 elements = 256 MB.
+# Above this many one-hot elements per image (T blocks × max_words), the
+# windowed-gather assembly takes over from the matmul assembly; 1<<27
+# bf16 elements = 256 MB.  The cap on the whole vmapped operand comes
+# from the device's memory limit (backend.emit_onehot_cap).
 _MATMUL_ASSEMBLE_LIMIT = 1 << 27
-# Absolute HBM cap on the materialized one-hot INCLUDING the vmap batch
-# factor: 1<<31 bf16 elements = 4 GB (v5e has 16 GB).  The production
-# 500² B=64 chunk sits at ~1.6e9 elements and stays on the matmul path;
-# large-scan chunks (max_words ≥ 16k) would hit 13 GB and must fall back.
-_MATMUL_ASSEMBLE_HBM_CAP = 1 << 31
 
 
 def _assemble_global(bufs: jax.Array, block_bits: jax.Array,
@@ -643,7 +634,7 @@ def emit_scan_device(qy: jax.Array, qcb: jax.Array, qcr: jax.Array,
     bits_slot = bits_cat[perm]
     if (total * max_words <= _MATMUL_ASSEMBLE_LIMIT
             and max(1, batch_hint) * total * max_words
-            <= _MATMUL_ASSEMBLE_HBM_CAP):
+            <= emit_onehot_cap()):
         words, total_bits = _assemble_global_matmul(bufs_slot, bits_slot,
                                                     max_words)
     else:

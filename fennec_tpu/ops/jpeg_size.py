@@ -87,10 +87,9 @@ def _bitlen(v: jax.Array) -> jax.Array:
 
 
 def _lut1(table: jax.Array, idx: jax.Array) -> jax.Array:
-    """Tiny-table lookup as a one-hot f32 dot — TPU element-gathers run
-    at a few thousand lookups/ms, the MXU does this at memory speed.
-    HIGHEST precision: the default matmul would feed bf16 to the MXU and
-    corrupt values wider than 8 mantissa bits."""
+    """Tiny-table lookup as a one-hot f32 dot.  HIGHEST precision: a
+    lower one may round the operands (TF32 or bf16) and corrupt values
+    wider than their mantissa."""
     s = table.shape[0]
     flat = idx.reshape(-1, 1)
     onehot = (flat == jnp.arange(s, dtype=idx.dtype)).astype(jnp.float32)

@@ -1,9 +1,10 @@
-"""Resampling: Lanczos-3 resize and box downsample as MXU matmuls.
+"""Resampling: Lanczos-3 resize and box downsample as matmuls.
 
-TPU-first design: the reference walks per-pixel weight lists in goroutine
-row shards (resize.go:77-161, ssim.go:244-309).  Here a separable resample
-is two dense matmuls with precomputed (dst, src) weight matrices — large,
-batched, MXU-shaped work that XLA fuses with surrounding element-wise ops.
+Device-first design: the reference walks per-pixel weight lists in
+goroutine row shards (resize.go:77-161, ssim.go:244-309).  Here a
+separable resample is two dense matmuls with precomputed (dst, src)
+weight matrices — large, batched work that XLA fuses with surrounding
+element-wise ops.
 
 Alpha handling matches the reference's Lanczos path: RGB is premultiplied
 by alpha before filtering and un-premultiplied after, preventing color
@@ -49,9 +50,9 @@ def lanczos_resize_device(img: jax.Array, wh: jax.Array,
     img = img.astype(jnp.float32)
     alpha = img[..., 3:4]
     premul = jnp.concatenate([img[..., :3] * alpha, alpha], axis=-1)
-    # Horizontal then vertical pass — two matmuls on the MXU.  HIGHEST
-    # precision keeps true-f32 accumulation (TPU default would downcast
-    # to bfloat16, visibly banding 8-bit pixel data).
+    # Horizontal then vertical pass — two matmuls.  HIGHEST precision
+    # keeps true-f32 products (a lower one may run in TF32 on the GPU,
+    # visibly banding 8-bit pixel data).
     tmp = jnp.einsum("hwc,Dw->hDc", premul, wh,
                      preferred_element_type=jnp.float32,
                      precision=jax.lax.Precision.HIGHEST)
@@ -94,7 +95,7 @@ def box_resize_weights(src_w: int, src_h: int, dst_w: int,
 
 # Device weight matrices are cached per geometry so repeated probes
 # (quality/scale searches, SSIMFast loops) ship them once per process
-# instead of per call (megabytes/dispatch on hosted links).  The cache is
+# instead of per call (megabytes per dispatch).  The cache is
 # byte-bounded, not entry-bounded: one 4K pair is tens of MB of HBM, so a
 # plain lru_cache(32) could pin ~1 GB in a long-lived process.
 _WEIGHT_CACHE_BUDGET = 128 * 1024 * 1024  # bytes of HBM, per process

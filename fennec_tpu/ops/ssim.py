@@ -1,10 +1,10 @@
 """SSIM / SSIMFast / MS-SSIM — structural similarity on device.
 
-TPU-first formulation: the reference computes, per window position, a
-Gaussian-weighted mean/variance/covariance with two explicit 8×8 scalar
-loops sharded over goroutines (ssim.go:73-166).  Here the five statistic
-maps (mu_a, mu_b, E[a²], E[b²], E[ab]) are produced by ONE depthwise
-separable convolution pair over a 5-channel stack — XLA fuses the
+The reference computes, per window position, a Gaussian-weighted
+mean/variance/covariance with two explicit 8×8 scalar loops sharded over
+goroutines (ssim.go:73-166).  Here the five statistic maps (mu_a, mu_b,
+E[a²], E[b²], E[ab]) are produced by ONE separable window pass pair over
+a 5-channel stack of shifted-slice multiply-adds — XLA fuses the
 element-wise SSIM formula and the mean-reduction behind it, so the whole
 score is a single fused device program with no host round-trips.
 
@@ -23,7 +23,6 @@ Window semantics replicate the reference exactly:
 
 from __future__ import annotations
 
-import functools
 import math
 import threading
 from collections import OrderedDict
@@ -59,12 +58,9 @@ MSSSIM_WEIGHTS = (0.0448, 0.2856, 0.3001, 0.2363, 0.1333)
 def _window_sum(x: jax.Array, g: jax.Array, axis: int,
                 out_len: int) -> jax.Array:
     """Weighted sum of 8 shifted slices along `axis` — the separable
-    Gaussian window as fused VPU multiply-adds.
-
-    TPU note: an 8-tap depthwise convolution lowers poorly on TPU (no MXU
-    mapping, per-channel loops); eight static-slice FMAs fuse into one
-    element-wise pass and keep true float32 accumulation, which the <1e-4
-    parity bound requires.
+    Gaussian window as fused multiply-adds.  Eight static-slice FMAs fuse
+    into one elementwise pass and keep true float32 accumulation, which
+    the <1e-4 parity bound requires.
     """
     out = None
     for k in range(WINDOW_SIZE):
@@ -103,46 +99,17 @@ def ssim_map_device(lum_a: jax.Array, lum_b: jax.Array) -> jax.Array:
     return num / den
 
 
-def _use_pallas() -> bool:
-    """Trace-time routing: the fused Pallas kernel on TPU, jnp elsewhere
-    (FENNEC_NO_PALLAS=1 forces the jnp path)."""
-    import os
-
-    if os.environ.get("FENNEC_NO_PALLAS"):
-        return False
-    try:
-        from .ssim_pallas import pallas_ssim_available
-
-        return pallas_ssim_available()
-    except Exception:  # pragma: no cover
-        return False
-
-
-@functools.partial(jax.jit, static_argnums=(2,))
-def _windowed_ssim_routed(lum_a: jax.Array, lum_b: jax.Array,
-                          use_pallas: bool) -> jax.Array:
+@jax.jit
+def windowed_ssim_device(lum_a: jax.Array, lum_b: jax.Array) -> jax.Array:
+    """Mean windowed SSIM (reference ssim.go:73-166). Shapes must be ≥ 8
+    (== 8 returns the reference's empty-window 1.0)."""
     if lum_a.shape[-2] <= WINDOW_SIZE or lum_a.shape[-1] <= WINDOW_SIZE:
         # Zero window positions (reference ssim.go:162-164) — reachable
         # via SSIMFast on extreme-aspect images whose downsample floors
-        # at exactly 8px (ssim_fast_dims); the Pallas kernel asserts and
-        # the jnp mean-of-empty is NaN, so guard at trace time.
+        # at exactly 8px (ssim_fast_dims); the mean of an empty map is
+        # NaN, so guard at trace time.
         return jnp.float32(1.0)
-    if use_pallas:
-        from .ssim_pallas import batched_ssim_pallas
-
-        return batched_ssim_pallas(lum_a[None], lum_b[None])[0]
     return jnp.mean(ssim_map_device(lum_a, lum_b))
-
-
-def windowed_ssim_device(lum_a: jax.Array, lum_b: jax.Array) -> jax.Array:
-    """Mean windowed SSIM (reference ssim.go:73-166). Shapes must be ≥ 8
-    (== 8 returns the reference's empty-window 1.0).
-
-    On TPU this is the fused Pallas kernel (ops/ssim_pallas.py) — the
-    statistic maps never touch HBM; elsewhere the jnp separable-window
-    formulation (parity ≤2e-7, pinned in tests/test_ssim_pallas.py).
-    """
-    return _windowed_ssim_routed(lum_a, lum_b, _use_pallas())
 
 
 def ssim_premaps_device(lum_a: jax.Array) -> jax.Array:

@@ -1,9 +1,10 @@
 """Multi-host initialization helpers.
 
 The reference has no distributed dimension (single-process Go); fennec-tpu
-scales across hosts/slices the standard JAX way: jax.distributed +
-pjit/shard_map over a global Mesh — collectives ride ICI within a slice
-and DCN between slices, inserted by XLA (no custom transport).
+scales across GPUs and hosts the standard JAX way: jax.distributed +
+jit/shard_map over a global Mesh.  XLA inserts the collectives and hands
+them to NCCL, over NVLink between the GPUs of one host and over the
+network between hosts (no custom transport).
 """
 
 from __future__ import annotations
@@ -18,8 +19,9 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
                            process_id: Optional[int] = None) -> None:
     """Initialize multi-host JAX (no-op on single-host setups).
 
-    On cloud TPU pods the arguments are auto-detected from the
-    environment; pass them explicitly elsewhere.
+    Pass the coordinator address (``host:port``), the number of
+    processes and this process's id explicitly: a plain GPU host has no
+    cluster environment for JAX to detect them from.
 
     Must run before any JAX call that initializes the XLA backend
     (including jax.devices()/jax.process_count() — querying those to

@@ -1,7 +1,7 @@
 """Core types for fennec-tpu: formats, quality presets, options, results, errors.
 
 Mirrors the semantics of the reference implementation's type system
-(reference: types.go:17-297) with a TPU-native, Pythonic surface:
+(reference: types.go:17-297) with a Pythonic surface:
 images are numpy/JAX arrays of shape (H, W, 4) uint8 (NRGBA layout),
 and options follow the zero-value-is-default design (Balanced is the
 default Quality; reference types.go:57-91).
@@ -77,7 +77,7 @@ class DeadlineExceededError(CanceledError):
 
 # ── Context (cancellation) ──────────────────────────────────────────────────
 # The reference threads context.Context through all long-running operations
-# (reference fennec.go:30, batch.go:58, targetsize.go:26). The TPU build's
+# (reference fennec.go:30, batch.go:58, targetsize.go:26). This build's
 # analogue is a small cooperative cancellation token checked between pipeline
 # stages on the host; device-resident loops are not interruptible mid-flight
 # (in-flight work finishes, matching the reference batch semantics
@@ -267,9 +267,10 @@ class Options:
     # Composes with optimize_huffman: per-image optimal tables are built
     # from device-computed symbol histograms and applied in a second
     # emission pass on the resident coefficients (byte-identical output
-    # to the host optimal encoder).  None = auto: on when the default
-    # JAX backend is a TPU (device emission on CPU is slower than the
-    # C++ host coder), off otherwise.
+    # to the host optimal encoder).  None = auto: the platform's default
+    # arm, backend.device_entropy_default — on for a GPU backend, off
+    # for the CPU backend (device emission on the CPU is slower than
+    # the C++ host coder).
     device_entropy: Optional[bool] = None
 
     def validate(self) -> None:

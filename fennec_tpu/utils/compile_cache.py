@@ -1,37 +1,38 @@
-"""Persistent XLA compile-cache enablement.
+"""Persistent XLA compile cache.
 
 First-time XLA compiles of the search/emission programs take tens of
-seconds (minutes over a remote-device tunnel); a short-lived process —
-the CLI especially — would pay that on every invocation.  Enabling
-JAX's persistent compilation cache makes every geometry compile once
-per machine.  Opt out with FENNEC_NO_COMPILE_CACHE=1 or by pointing
-FENNEC_COMPILE_CACHE at a different directory.
+seconds; a short-lived process — the CLI especially — would pay that on
+every invocation.  JAX's persistent compilation cache makes every
+geometry compile once per cache directory.
+
+Where ``JAX_COMPILATION_CACHE_DIR`` is set, JAX reads it itself and this
+module sets no other directory.  Otherwise the cache lives at the fixed
+in-checkout path ``<repo>/.jax_cache/`` (listed in ``.gitignore``): the
+directory is part of the cache's key, so a path that moves never hits.
 """
 
 from __future__ import annotations
 
 import os
 
-_DONE = False
+CACHE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__)))), ".jax_cache")
 
 
-def enable_compile_cache() -> None:
-    """Idempotently point JAX's persistent compile cache at
-    ~/.cache/fennec_jax_cache (or $FENNEC_COMPILE_CACHE).  Best-effort:
-    config-name drift across JAX versions must never break the CLI."""
-    global _DONE
-    if _DONE or os.environ.get("FENNEC_NO_COMPILE_CACHE"):
-        return
-    _DONE = True
+def compile_cache_dir() -> str:
+    """The directory the persistent compile cache uses."""
+    return os.environ.get("JAX_COMPILATION_CACHE_DIR") or CACHE_DIR
+
+
+def enable_compile_cache(min_compile_secs: float = 1.0) -> str:
+    """Turn on JAX's persistent compile cache (idempotent) and return
+    its directory.  Programs that compile faster than
+    ``min_compile_secs`` are not cached."""
     import jax
 
-    path = os.environ.get(
-        "FENNEC_COMPILE_CACHE",
-        os.path.join(os.path.expanduser("~"), ".cache",
-                     "fennec_jax_cache"))
-    try:
-        jax.config.update("jax_compilation_cache_dir", path)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs",
-                          1.0)
-    except Exception:
-        pass
+    if not os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        jax.config.update("jax_compilation_cache_dir", CACHE_DIR)
+    jax.config.update("jax_persistent_cache_min_compile_time_secs",
+                      min_compile_secs)
+    return compile_cache_dir()

@@ -1,7 +1,7 @@
 """Observability: per-stage wall timers and jax.profiler traces.
 
 The reference's only timing surface is the CLI wall-clock print
-(cmd/fennec/main.go:116-127) and Go benchmarks; the TPU build adds
+(cmd/fennec/main.go:116-127) and Go benchmarks; this build adds
 device-aware tracing (jax.profiler) and a composable stage timer.
 """
 

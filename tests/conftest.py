@@ -1,8 +1,9 @@
 """Test configuration: force the CPU backend with 8 virtual devices.
 
 Multi-chip sharding paths are tested against a fake 8-device CPU mesh
-(the standard JAX pattern for testing pjit/shard_map without hardware);
-benchmarks (bench.py) run separately on real TPU.
+(the standard JAX pattern for testing pjit/shard_map without hardware).
+The program itself runs on the GPU: `python chip_smoke.py` drives it
+there, and tests marked `gpu` skip unless a GPU is present.
 """
 
 import os
@@ -17,43 +18,44 @@ if "xla_cpu_parallel_codegen_split_count" not in flags:
     # large programs compiled in-process); serial codegen is stable.
     flags = (flags + " --xla_cpu_parallel_codegen_split_count=1").strip()
 os.environ["XLA_FLAGS"] = flags
-os.environ["JAX_PLATFORMS"] = "cpu"
+# FENNEC_TEST_GPU=1 leaves JAX on its default platform, for the tests
+# marked `gpu` (`FENNEC_TEST_GPU=1 python -m pytest -m gpu -n 0 tests/`).
+ON_GPU = bool(os.environ.get("FENNEC_TEST_GPU"))
+if not ON_GPU:
+    os.environ["JAX_PLATFORMS"] = "cpu"
 
 import pathlib
 import sys
 
 import jax
 
-# The env var alone is not honored when an experimental TPU platform plugin
-# is registered; the config update forces the CPU backend deterministically.
-jax.config.update("jax_platforms", "cpu")
+# Set the platform through the config as well as the environment, so
+# that a JAX already initialised by an earlier import in the process
+# still gives the suite the CPU backend.
+if not ON_GPU:
+    jax.config.update("jax_platforms", "cpu")
+
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
 # Persistent compile cache: the suite is compile-dominated (hundreds of
 # shape-specialized programs), and very large in-process LLVM JIT volume
 # has been observed to segfault XLA CPU in long custom test orderings —
-# cached executables sidestep both.  FENNEC_TEST_NO_CACHE=1 disables.
+# cached executables sidestep both.  It follows JAX_COMPILATION_CACHE_DIR
+# where that is set, and is <repo>/.jax_cache/ otherwise
+# (fennec_tpu.utils.compile_cache).  FENNEC_TEST_NO_CACHE=1 disables it.
 #
-# STALE-CACHE HAZARD (observed 2026-08-20): entries AOT-compiled under a
-# different XLA_FLAGS/target-feature set load with
-# "cpu_aot_loader ... machine feature ... not supported" errors and can
-# ABORT the process mid-execution (a worker died inside a device->host
-# transfer in test_parallel.py's 4K test; rerunning alone passed).  If
-# the suite starts crashing workers while those loader errors appear,
-# delete ~/.cache/fennec_jax_cache_tests — after a purge the same
-# ordering passed 100/100.
+# STALE-CACHE HAZARD: entries AOT-compiled under a different
+# XLA_FLAGS/target-feature set load with "cpu_aot_loader ... machine
+# feature ... not supported" errors and can ABORT the process
+# mid-execution.  If the suite starts crashing workers while those
+# loader errors appear, delete the cache directory.
 if not os.environ.get("FENNEC_TEST_NO_CACHE"):
-    try:
-        jax.config.update(
-            "jax_compilation_cache_dir",
-            os.path.expanduser("~/.cache/fennec_jax_cache_tests"))
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-    except Exception:
-        pass
+    from fennec_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache(min_compile_secs=0.5)
 
 import numpy as np
 import pytest
-
-sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
 
 # ── Shared image generators (mirroring reference fennec_test.go:20-76) ──────
@@ -107,6 +109,15 @@ def make_noise_image(w: int, h: int, seed: int = 0) -> np.ndarray:
 @pytest.fixture
 def gradient_image():
     return make_test_image(64, 48)
+
+
+@pytest.fixture
+def gpu():
+    """The GPU device for tests marked `gpu`; skips without one."""
+    if jax.default_backend() != "gpu":
+        pytest.skip("needs a GPU: FENNEC_TEST_GPU=1 python -m pytest "
+                    "-m gpu -n 0 tests/")
+    return jax.devices()[0]
 
 
 # ── Fast lane (-m "not slow") ───────────────────────────────────────────

@@ -163,7 +163,7 @@ class TestBatch:
 
     def test_summarize_excludes_skipped_from_avg_ssim(self):
         """skip_existing items (result=None, err=None) count as succeeded
-        but must not dilute avg_ssim (VERDICT r1 weak #8)."""
+        but must not dilute avg_ssim."""
         from fennec_tpu.types import Result
 
         item = fennec.BatchItem(src="a", dst="b")

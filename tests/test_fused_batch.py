@@ -322,7 +322,7 @@ class TestDeviceFaultIsolation:
         self._patch_search_raise(
             monkeypatch,
             lambda: jax.errors.JaxRuntimeError(
-                "INVALID_ARGUMENT: injected TPU backend error"))
+                "INVALID_ARGUMENT: injected backend error"))
         items = self._jpeg_items(tmp_path, 6)
         with warnings.catch_warnings(record=True) as w:
             warnings.simplefilter("always")

@@ -1,4 +1,4 @@
-"""Go-reference golden parity (VERDICT r1 missing #2).
+"""Go-reference golden parity.
 
 Every other parity test in this suite asserts against float64 numpy
 oracles RE-DERIVED from reading the Go source — a shared misreading

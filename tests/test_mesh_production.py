@@ -2,7 +2,7 @@
 
 When more than one device is present, compress_batch /
 compress_images_batched shard every chunk's batch axis over a
-Mesh('data') — the TPU-native analogue of the reference's CompressBatch
+Mesh('data') — the multi-device analogue of the reference's CompressBatch
 goroutine pool saturating all cores (batch.go:58-128).  FENNEC_MESH=1
 forces the mesh path on the suite's 8-virtual-device CPU backend;
 results must be BYTE-identical to the single-device dispatch path.
@@ -107,6 +107,25 @@ class TestCoefPathMesh:
                  for i in range(9)]
         opts = fennec.Options(format=fennec.Format.JPEG,
                               device_entropy=True)
+        monkeypatch.setenv("FENNEC_MESH", "0")
+        base = compress_jpeg_bytes_batched(None, datas, opts)
+        monkeypatch.setenv("FENNEC_MESH", "1")
+        sharded = compress_jpeg_bytes_batched(None, datas, opts)
+        for a, b in zip(base, sharded):
+            assert a.compressed_data == b.compressed_data
+
+    @pytest.mark.parametrize("device_entropy", [True, False])
+    def test_distinct_photos_identical(self, monkeypatch, device_entropy):
+        # Distinct photographic inputs: every image carries its own
+        # |v| > 127 exception rows, which each shard must keep to its
+        # own images (rows of earlier shards arrive with negative
+        # rebased indices and must be dropped, not wrapped).
+        from bench import photo_batch
+
+        imgs = photo_batch(8, 48, 48, seed=5).astype(np.uint8)
+        datas = [encode_jpeg(im, 92) for im in imgs]
+        opts = fennec.Options(format=fennec.Format.JPEG,
+                              device_entropy=device_entropy)
         monkeypatch.setenv("FENNEC_MESH", "0")
         base = compress_jpeg_bytes_batched(None, datas, opts)
         monkeypatch.setenv("FENNEC_MESH", "1")

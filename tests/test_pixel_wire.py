@@ -127,8 +127,7 @@ class TestWireEngineRoute:
             # The wire is lossy by design (u8 plane rounding + the
             # native pass's 16.16 coefficients): a bisection landing on
             # a knife edge may move ONE quality step on tiny noisy
-            # images (0/8 changes measured on chip at production
-            # sizes); the preset contract — SSIM within the reference's
+            # images; the preset contract — SSIM within the reference's
             # target band (fennec_test.go:233-259) — must always hold.
             assert abs(a.jpeg_quality - b.jpeg_quality) <= 1
             assert b.ssim >= 0.94 - 0.02  # Balanced band

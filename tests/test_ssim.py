@@ -117,8 +117,7 @@ class TestSSIMFast:
     def test_extreme_aspect_floors_at_8px(self):
         # 2000x30 downsamples to (512, 8): the reference's window set is
         # empty → SSIM 1.0 (ssim.go:162-164).  Regression: this routed
-        # into the windowed path and produced NaN (jnp) or a Pallas
-        # assert (TPU).
+        # into the windowed path and produced NaN.
         img = make_test_image(2000, 30)
         b = perturb(img, amount=10)
         v = ssim_fast(img, b)
@@ -208,3 +207,33 @@ def test_lanczos_resize_jax_input_normalized():
     out_jax = lanczos_resize(jnp.asarray(a01), 8, 8)
     np.testing.assert_array_equal(out_np, out_jax)
     assert out_jax[..., 0].max() > 0  # not all-black
+
+
+class TestWindowedSSIMOracle:
+    """The windowed scorer the quality search uses, against the float64
+    oracle on noise pairs, at odd and even shapes."""
+
+    @pytest.mark.parametrize("shape", [(32, 32), (64, 48), (130, 100)])
+    def test_matches_oracle(self, shape):
+        from fennec_tpu.ops.color import luminance_device
+        from fennec_tpu.ops.ssim import windowed_ssim_device
+
+        h, w = shape
+        for i in range(3):
+            a = make_noise_image(w, h, seed=i)
+            b = np.clip(a.astype(int) + (i + 1) * 5, 0, 255).astype(np.uint8)
+            got = float(windowed_ssim_device(
+                luminance_device(np.asarray(a, np.float32)),
+                luminance_device(np.asarray(b, np.float32))))
+            want = oracles.windowed_ssim(oracles.luminance(a),
+                                         oracles.luminance(b))
+            assert got == pytest.approx(want, abs=PARITY_TOL)
+
+    def test_identical_is_one(self):
+        from fennec_tpu.ops.color import luminance_device
+        from fennec_tpu.ops.ssim import windowed_ssim_device
+
+        lum = luminance_device(np.asarray(make_test_image(40, 40),
+                                          np.float32))
+        assert float(windowed_ssim_device(lum, lum)) == pytest.approx(
+            1.0, abs=1e-5)
